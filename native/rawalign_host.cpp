@@ -1,6 +1,6 @@
 // Native host runtime for rawalign-tpu.
 //
-// The device (TPU) owns the mapping compute path; this library owns the
+// The device (GPU) owns the mapping compute path; this library owns the
 // host-side sequential hot loops that feed it:
 //   * plain-mode sketching for the index build (the adjacent-similar
 //     suppression + rolling pack are sequential over a whole genome's
@@ -449,10 +449,9 @@ void ra_dtw_banded_batch(const float* a_pool, const int64_t* a_off,
 // read are sorted by (segment = target*2 + strand, target_pos,
 // query_pos); cross-segment window slots are inert (no score, no skip
 // count, no break), matching the reference's per-(target,strand)-list
-// iteration. On this framework's tunneled-TPU deployments the real
-// per-round anchor data is tiny (a few MB of cell updates), so running
-// the DP host-side removes a device round trip; results are identical
-// to the device path by construction.
+// iteration. The real per-round anchor data is tiny (a few MB of cell
+// updates), so running the DP host-side removes a device round trip;
+// results are identical to the device path by construction.
 // Full event detector for one chunk (reference: revent.c:190-210):
 // float32 sequential prefix sums (revent.c:22-32), two-window t-stats
 // (revent.c:34-75; float ops with the double abs/sqrt step, multiplies

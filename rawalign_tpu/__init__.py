@@ -1,6 +1,7 @@
-"""rawalign-tpu: TPU-native raw nanopore signal mapping (Seed-Filter-Align).
+"""rawalign-tpu: raw nanopore signal mapping on NVIDIA GPUs (Seed-Filter-Align).
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX framework (XLA, Pallas through Triton, and a CUDA
+kernel through the XLA FFI) with the capabilities of
 CMU-SAFARI/RawAlign: it maps raw ONT current signals to a reference genome
 without basecalling, by converting the reference into expected signal space
 with a k-mer pore model, detecting events in the raw signal, quantizing and

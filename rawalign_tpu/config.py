@@ -46,7 +46,7 @@ class IndexOptions:
     """Indexing options (reference: src/roptions.h:33-37, defaults
     src/rawindex.cpp:465-472)."""
 
-    b: int = 14  # log2 number of buckets (informational; the TPU index is one sorted table)
+    b: int = 14  # log2 number of buckets (informational; the device index is one sorted table)
     w: int = 0  # minimizer window; 0 disables minimizer seeding
     e: int = 6  # events packed per hash
     n: int = 0  # BLEND neighbors (disabled, as in the reference)
@@ -110,7 +110,7 @@ class MappingOptions:
     threshold2: float = 2.57058
     peak_height: float = 1.0
 
-    # --- TPU engine shape caps (not in the reference; padding bounds for
+    # --- device engine shape caps (not in the reference; padding bounds for
     # fixed-shape device computation). These do not change results: overflow
     # is counted and reported, mirroring the occurrence-filter idea the
     # reference left disabled (rmap.cpp:28-51).

@@ -1,6 +1,6 @@
 """The seed index: build (host), query (device), serialization.
 
-TPU-first redesign of the reference's bucketed khash index
+Data-parallel redesign of the reference's bucketed khash index
 (src/rawindex.cpp:194-273): one flat table of all seeds sorted by
 (hash, y), queried with vectorized binary search + bounded gather. This
 replaces pointer-chasing hash lookups with two ``searchsorted`` passes and
@@ -8,7 +8,7 @@ a contiguous gather — bandwidth-friendly and fully batched, and it
 produces the reference's exact hit lists in the same order (the reference
 radix-sorts each hash's positions by y, rawindex.cpp:233).
 
-Device layout (all uint32/int32 — TPUs have no native 64-bit int):
+Device layout (all uint32/int32: JAX runs without 64-bit types by default):
   keys   (S,)  uint32  sorted seed hashes
   val_id (S,)  uint32  target sequence id
   val_ps (S,)  uint32  pos<<1 | strand

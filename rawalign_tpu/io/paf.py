@@ -9,6 +9,7 @@ std::to_string formatting (6 fixed decimals).
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 
@@ -146,6 +147,12 @@ def build_tags(
     if anchors is not None:
         tags += f"\tanchors:s:{anchors}"
     return tags
+
+
+def strip_mt(line: str) -> str:
+    """A PAF line without its mt:f (mapping time) tag, which no two runs
+    share."""
+    return re.sub(r"\tmt:f:[^\t]*", "", line)
 
 
 def paf_line(r: MappingResult) -> str:

@@ -21,8 +21,7 @@ vectorized kernel uses (dtw.cpp:273-520), so every cell consumes the
 exact float32 operand triple of the row-major reference code and the
 scores match bit-for-bit; cells outside the diagonal band (optional
 ``radius``) read INF. The a-operand per diagonal is a uniform dynamic
-slice of the reversed padded array (no gathers — the TPU scalar-unit
-gather is the one thing to avoid in a scan body).
+slice of the reversed padded array (no gathers in the scan body).
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ works without a toolchain — just slower on host-side index builds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import subprocess
@@ -21,18 +22,15 @@ _SO = os.path.join(_NATIVE_DIR, "librawalign_host.so")
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL | None:
     src = os.path.join(_NATIVE_DIR, "rawalign_host.cpp")
-    stale = (
-        os.path.exists(src)
-        and os.path.exists(_SO)
-        and os.path.getmtime(src) > os.path.getmtime(_SO)
-    )
-    if not os.path.exists(_SO) or stale:
-        if not os.path.exists(src):
-            return None
+    if not os.path.exists(src):
+        return None
+    # one builder at a time (test workers and engines load concurrently);
+    # make rebuilds only a missing or stale library
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR] + (["-B"] if stale else []),
-                check=True, capture_output=True,
+                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
             )
         except (subprocess.CalledProcessError, FileNotFoundError):
             if not os.path.exists(_SO):

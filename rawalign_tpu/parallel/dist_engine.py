@@ -51,6 +51,17 @@ from rawalign_tpu.seeds import sketch as dsketch
 from rawalign_tpu.signal import events as devents
 
 
+def mesh_layouts(n_devices: int) -> list[tuple[int, int]]:
+    """The (data, shard) mesh layouts a check over ``n_devices`` covers:
+    all data-parallel, a 2-wide shard axis where it fits, all sharded."""
+    out = [(n_devices, 1)]
+    if n_devices % 2 == 0 and n_devices >= 4:
+        out.append((n_devices // 2, 2))
+    if n_devices > 1:
+        out.append((1, n_devices))
+    return out
+
+
 class DistributedMappingEngine(MappingEngine):
     """MappingEngine with every device stage sharded over ``mesh``.
 
@@ -102,9 +113,6 @@ class DistributedMappingEngine(MappingEngine):
         # download carries event values only in device-detector mode
         self._events_on_host = True
         self._s1_dl_events = s1 == "device"
-        # DTW lane group per device: 128 tiles/lane-group on TPU; small
-        # in interpret mode (CPU) where lanes are emulated
-        self._dtw_tg = 8 if jax.default_backend() == "cpu" else 128
         # replicate the resident reference signal pool over the mesh
         self._ref_cat_dev = jax.device_put(
             self._ref_cat_host, NamedSharding(mesh, P(None))
@@ -337,5 +345,4 @@ class DistributedMappingEngine(MappingEngine):
             device_max_n=self.dtw_device_max_n,
             device_max_b=self.dtw_device_max_b,
             mesh=self.mesh,
-            tg=self._dtw_tg,
         )

@@ -9,7 +9,7 @@ participates in the global device mesh for sharded-index lookups.
 Usage (one process per host):
 
     from rawalign_tpu.parallel import distributed
-    distributed.init()                      # env-driven (TPU pods: automatic)
+    distributed.init()                      # from JAX_* variables
     files = distributed.shard_files(files)  # this host's input shard
     ... build engine with a mesh over jax.devices() ...
 
@@ -30,27 +30,34 @@ def init(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize jax.distributed. On TPU pods all arguments are inferred
-    from the environment; on other platforms pass them explicitly or via
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID."""
+    """Initialize jax.distributed over GPU hosts. Nothing on a GPU host
+    describes the cluster to JAX, so every argument is given here or by
+    JAX_COORDINATOR_ADDRESS (host:port of process 0), JAX_NUM_PROCESSES
+    and JAX_PROCESS_ID; a missing one raises."""
     import jax
 
-    kwargs = {}
-    if coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        kwargs["coordinator_address"] = coordinator_address or os.environ.get(
-            "JAX_COORDINATOR_ADDRESS"
+    env = os.environ
+    coordinator_address = coordinator_address or env.get("JAX_COORDINATOR_ADDRESS")
+    if num_processes is None and env.get("JAX_NUM_PROCESSES"):
+        num_processes = int(env["JAX_NUM_PROCESSES"])
+    if process_id is None and env.get("JAX_PROCESS_ID"):
+        process_id = int(env["JAX_PROCESS_ID"])
+    missing = [
+        name
+        for name, v in (
+            ("coordinator_address", coordinator_address),
+            ("num_processes", num_processes),
+            ("process_id", process_id),
         )
-    if num_processes or os.environ.get("JAX_NUM_PROCESSES"):
-        kwargs["num_processes"] = int(
-            num_processes or os.environ["JAX_NUM_PROCESSES"]
-        )
-    if process_id is not None or os.environ.get("JAX_PROCESS_ID"):
-        kwargs["process_id"] = int(
-            process_id
-            if process_id is not None
-            else os.environ["JAX_PROCESS_ID"]
-        )
-    jax.distributed.initialize(**kwargs)
+        if v is None
+    ]
+    if missing:
+        raise ValueError(f"distributed.init: missing {', '.join(missing)}")
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def process_info() -> tuple[int, int]:

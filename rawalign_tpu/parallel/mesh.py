@@ -1,7 +1,7 @@
 """Multi-chip execution: mesh, shardings, and the distributed mapping step.
 
 The reference's only parallelism is shared-memory pthreads
-(src/kthread.c; SURVEY §2 row 15). The TPU framework scales over a
+(src/kthread.c; SURVEY §2 row 15). This framework scales over a
 ``jax.sharding.Mesh`` with two axes:
 
   data  — read-level data parallelism: each device maps its shard of the

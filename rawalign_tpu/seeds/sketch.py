@@ -1,11 +1,13 @@
 """Batched event sketching on device (JAX).
 
-TPU reformulation of the reference's sketch modes (src/rsketch.c): the
+Data-parallel form of the reference's sketch modes (src/rsketch.c): the
 adjacent-similar suppression + rolling pack are a single short
 ``lax.scan`` over the event axis (sequential carry: last kept value,
 packed accumulator, ring of recent kept positions), everything else —
 bit-level quantization, the hash, the minimizer window filter — is
-vectorized.
+vectorized. (A one-launch GPU kernel of the scan was 18x faster alone on
+an H100 but no faster end to end, where stage 1 overlaps host work; see
+PERF.md.)
 
 Width note: the packed code spans quant_bit*e bits (up to 50 for e=10),
 but the reference hashes it with hash64 masked to 32 bits
@@ -13,7 +15,7 @@ but the reference hashes it with hash64 masked to 32 bits
 which reads only bits 0..31 (for ~key) and 0..10 (for key<<21) of the
 packed code — the hash depends ONLY on its low 32 bits. The device pack
 therefore tracks a uint32 accumulator and matches the reference hashes
-bit-for-bit without 64-bit integers (which TPUs lack natively).
+bit-for-bit without 64-bit integers.
 """
 
 from __future__ import annotations
@@ -74,26 +76,6 @@ def _sketch_scan(events, n_events, e, q, lq):
     tq = quantize_u32(events, q, lq)
     idx = jnp.arange(NE, dtype=jnp.int32)
     in_range = idx[None, :] < n_events[:, None]
-
-    if jax.default_backend() != "cpu" and NE < (1 << 13):
-        # fused on-chip kernel (this scan pays ~10 us dispatch/step)
-        from rawalign_tpu.seeds import sketch_pallas
-
-        accs_t, emits_t, oldest_t, cnts_t = sketch_pallas.sketch_scan_pallas(
-            events.astype(jnp.float32),
-            tq,
-            n_events.astype(jnp.int32),
-            e=e,
-            quant_bit=quant_bit,
-        )
-        hashes = hash64_u32(accs_t)
-        return (
-            jnp.where(emits_t, hashes, 0),
-            emits_t,
-            jnp.broadcast_to(idx[None, :], (B, NE)),
-            oldest_t,
-            cnts_t,
-        )
 
     def step(carry, xs):
         last_val, acc, kept_cnt, ring = carry

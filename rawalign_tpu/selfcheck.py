@@ -2,11 +2,11 @@
 batched device engine against the golden host oracle.
 
 The reference's safety net for its C/pthreads runtime is
-valgrind/sanitizer tooling plus deterministic tests (SURVEY §5). A TPU
+valgrind/sanitizer tooling plus deterministic tests (SURVEY §5). A device
 pipeline's failure modes are different: the dangerous bugs are SILENT —
 a miscompiled or stale-cached kernel, a packing/layout drift between
 engines (exactly the round-2 regression class), numeric divergence
-after a refactor. This module is the TPU-native analog of running under
+after a refactor. This module is the device analog of running under
 a sanitizer: deterministically sample a fraction of production reads,
 re-map each through the pure-NumPy golden engine (golden/engine.py,
 cited line-by-line to rmap.cpp:667-822), and diff every mapping column,

@@ -1,6 +1,7 @@
 """Batched event detection on device (JAX).
 
-TPU-first reformulation of the reference event detector (src/revent.c):
+Data-parallel reformulation of the reference event detector
+(src/revent.c):
 
 * prefix sums / t-statistics: vectorized window reductions over the whole
   batch (revent.c:22-75 computes them sequentially per read);
@@ -221,9 +222,8 @@ def _compact_peaks(peaks_lb2: jax.Array, max_peaks: int):
     (sample-major, detector-minor), -1 padded.
 
     Compaction via a (invalid, index) permutation sort + gather instead
-    of a scatter: TPU scatters serialize (~10 ms per round here), the
-    2-operand row sort is ~3 ms, and the pairs are unique so the result
-    is deterministic and order-preserving."""
+    of a scatter: the (invalid, index) pairs are unique, so the result is
+    deterministic and order-preserving."""
     B, L, _ = peaks_lb2.shape
     flat = peaks_lb2.reshape(B, L * 2)
     valid = flat >= 0
@@ -267,27 +267,12 @@ def detect_events_batch(
     """
     sig = sig.astype(jnp.float32)
     B, L = sig.shape
-    if jax.default_backend() != "cpu" and L < (1 << 13):
-        # fused on-chip kernel: bit-exact vs the XLA scans below and
-        # ~25x faster (the scans pay ~10 us dispatch per sample step)
-        from rawalign_tpu.signal import events_pallas
-
-        peaks_emitted, ps = events_pallas.peak_scan_pallas(
-            sig,
-            length,
-            w1=w1,
-            w2=w2,
-            threshold1=float(threshold1),
-            threshold2=float(threshold2),
-            peak_height=float(peak_height),
-        )
-    else:
-        ps, pss = _sequential_prefix_sums(sig, length)
-        t1 = _window_tstat(ps, pss, length, w1)
-        t2 = _window_tstat(ps, pss, length, w2)
-        peaks_emitted = _peak_scan(
-            t1, t2, length, threshold1, threshold2, w1, w2, peak_height
-        )
+    ps, pss = _sequential_prefix_sums(sig, length)
+    t1 = _window_tstat(ps, pss, length, w1)
+    t2 = _window_tstat(ps, pss, length, w2)
+    peaks_emitted = _peak_scan(
+        t1, t2, length, threshold1, threshold2, w1, w2, peak_height
+    )
     peaks, n_peaks = _compact_peaks(peaks_emitted, max_events)
 
     # gen_events (revent.c:140-188): events [0..n_ev-2] are prefix-sum means
@@ -334,8 +319,8 @@ def detect_events_batch(
     # z-normalize per read (revent.c:179-184). The reference computes
     # var = E[x^2] - mean^2 in DOUBLE; in float32 that formula loses
     # ~11 bits to cancellation (x ~ 95 pA, x^2 ~ 9e3), drifting every
-    # normalized event by up to ~3e-5 vs the compiled C. TPUs have no
-    # f64, so use the cancellation-free two-pass form E[(x-mean)^2],
+    # normalized event by up to ~3e-5 vs the compiled C. The device path
+    # stays in f32, so use the cancellation-free two-pass form E[(x-mean)^2],
     # which lands within a few f32 ulp of the C double result.
     cnt = jnp.maximum(n_ev_capped, 1).astype(jnp.float32)
     mean = jnp.sum(events, axis=1) / cnt

@@ -3,7 +3,7 @@
 Compiles /root/reference/src/dtw.cpp (read-only reference checkout; not
 part of this repo) into a shared library at test time and exposes its
 functions via ctypes. Used only by the test suite to validate the golden
-model and the TPU kernels against the actual reference semantics. If the
+model and the device kernels against the actual reference semantics. If the
 reference checkout or a C++ compiler is unavailable, oracle tests skip.
 """
 

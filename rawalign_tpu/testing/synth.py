@@ -235,3 +235,24 @@ def make_dataset(
             )
         )
     return SynthDataset(seqs=seqs, model=model, reads=reads)
+
+
+def write_dataset(outdir: str, ds: SynthDataset) -> dict[str, str]:
+    """Write ``ds`` as the mapper's inputs: reference FASTA, pore-model
+    TSV and reads as a sigbin container (FAST5 needs h5py, which is
+    optional). Returns their paths under the keys ref, model, reads."""
+    import os
+
+    from rawalign_tpu.io import fast5, fasta
+    from rawalign_tpu.pore_model import save_pore_model
+
+    os.makedirs(outdir, exist_ok=True)
+    paths = {
+        "ref": os.path.join(outdir, "ref.fa"),
+        "model": os.path.join(outdir, "model.txt"),
+        "reads": os.path.join(outdir, "reads.sigbin.npz"),
+    }
+    fasta.write_fasta(paths["ref"], [(s.name, s.seq) for s in ds.seqs])
+    save_pore_model(paths["model"], ds.model)
+    fast5.write_sigbin(paths["reads"], [(r.name, r.signal) for r in ds.reads])
+    return paths

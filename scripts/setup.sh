@@ -1,12 +1,17 @@
 #!/usr/bin/env bash
 # Environment bootstrap (the analog of the reference's ensure_*.sh):
-# builds the native host library and warms the device compilation cache
-# so the first real mapping run doesn't pay remote-compile latency.
+# builds the native host library (and, where nvcc exists, the CUDA DTW
+# kernel), smoke-tests the CPU path and optionally warms the GPU
+# compilation cache.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
 echo "== building native host library =="
 make -C native
+if command -v nvcc >/dev/null 2>&1 || [ -x /usr/local/cuda/bin/nvcc ]; then
+  echo "== building the CUDA DTW kernel =="
+  make -C native cuda
+fi
 
 echo "== smoke test (CPU backend) =="
 python - <<'EOF'
@@ -28,8 +33,8 @@ res = list(eng.map_reads((r.name, r.signal) for r in ds.reads))
 print(f"smoke OK: {sum(r.mapped for r in res)}/{len(res)} mapped")
 EOF
 
-if [ "${WARM_TPU_CACHE:-0}" = "1" ]; then
-  echo "== warming TPU compile cache (slow the first time) =="
+if [ "${WARM_GPU_CACHE:-0}" = "1" ]; then
+  echo "== warming the GPU compile cache (slow the first time) =="
   timeout 1200 python bench.py || true
 fi
 echo "setup complete"

@@ -1,4 +1,4 @@
-"""Two-process jax.distributed smoke test (CPU, no TPU pod needed).
+"""Two-process jax.distributed smoke test (CPU, no GPU cluster needed).
 
 Validates the multi-HOST path end to end on one machine:
 

@@ -63,7 +63,7 @@ def test_engine_matches_golden_exactly_with_full_window(setup, use_dtw):
             diffs.append((r.name, want, got[r.name]))
             # The only sanctioned divergence is a rare event-detector peak
             # flip: the reference's final t-stat routes |d|/sqrt(v/w)
-            # through double (revent.c:69) where the TPU has only f32, a
+            # through double (revent.c:69) where the device uses f32, a
             # <=2-ulp difference that can add/remove one event when a
             # t-stat sits within rounding of a threshold. That may only
             # perturb event-COUNT-derived tag values; every mapping

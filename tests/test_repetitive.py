@@ -76,10 +76,9 @@ def test_window_64_matches_window_512_on_tandem_repeats(tandem):
 def test_large_anchor_round_regression(tandem):
     """a_round >= 4096 regression: with a flooded anchor budget (high
     occ cap) the engine escalates its per-round anchor bucket to 4096;
-    a round-2 TPU bug made every read unmapped there (root cause: the
-    peak-compaction device scatter, since replaced by a permutation
-    sort). Verified fixed on real TPU (8/8 correct at 4096 and 8192);
-    this pins the escalated-bucket path on every backend."""
+    an earlier device bug made every read unmapped there (root cause:
+    the peak-compaction device scatter, since replaced by a permutation
+    sort); this pins the escalated-bucket path on every backend."""
     ds, idx, mo = tandem
     n_correct, counters = _run(ds, idx, mo, max_occ=256, max_anchors=4096, max_anchors_ceiling=4096)
     assert counters["anchors_dropped"] > 0  # budget actually flooded

@@ -120,3 +120,4 @@ def test_device_sketch_e7_width():
     want_hashes = (want[:, 0] >> np.uint64(6)).astype(np.uint32)
     got = np.asarray(res.hashes[0])[np.asarray(res.valid[0])]
     np.testing.assert_array_equal(got, want_hashes)
+

@@ -13,7 +13,7 @@ occurrence cap) and with the device engine over a (window, max_occ)
 grid, reporting PAF-line equality and locus agreement.
 
 Usage: python tools/chain_window_study.py [--reads 24] [--out study.json]
-Runs on CPU (jax_platforms=cpu) — fully host-side, no TPU needed.
+Runs on CPU (jax_platforms=cpu) — fully host-side, no accelerator needed.
 """
 
 import argparse

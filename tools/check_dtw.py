@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """DTW self-test + micro-benchmark harness.
 
-The TPU-framework analog of the reference's ``check_dtw`` binary
+This framework's analog of the reference's ``check_dtw`` binary
 (src/check_dtw.cpp):
 
 * default mode — randomized equivalence tests across the reference's
@@ -189,16 +189,15 @@ def run_perf(iters: int, alen: int, blen: int, frac: float) -> int:
 
         batch_pairs = [(a, b, r, False)] * 2048
         kw = dict(device_max_n=4096, device_max_b=4096)
-        pend = tiles.dtw_submit(batch_pairs, **kw)
-        tiles.dtw_collect(pend)  # warm / compile
+        tiles.dtw_banded_pairs(batch_pairs, **kw)  # warm / compile
 
         def dev_call():
-            tiles.dtw_collect(tiles.dtw_submit(batch_pairs, **kw))
+            tiles.dtw_banded_pairs(batch_pairs, **kw)
 
         us = mtime(dev_call, n=max(3, iters // 10))
         rows.append(
             (
-                f"device pallas batch (2048 tiles, {jax.default_backend()}), "
+                f"device batch (2048 tiles, {jax.devices()[0].device_kind}), "
                 "per tile",
                 us / 2048,
             )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Accuracy/throughput metrics from a PAF against ground truth.
 
-The TPU-framework analog of the reference's evaluation pipeline
+This framework's analog of the reference's evaluation pipeline
 (test/scripts/compare_pafs.py + `uncalled pafstats --annotate`): computes
 tp/fp/fn/tn, precision, recall, F1, and the mapping-time statistics from
 the PAF ``mt:f`` tag and the chunk counts from ``ci:i`` (the same

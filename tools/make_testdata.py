@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Generate a synthetic evaluation dataset: reference FASTA, pore-model
-TSV, multi-read FAST5 (plus sigbin), and a ground-truth TSV.
+TSV, reads as sigbin (plus multi-read FAST5 when h5py is installed), and
+a ground-truth TSV.
 
 Stands in for the reference's test/data downloads (d1-d5), which are not
 redistributable; the simulated signal model matches the pipeline's
@@ -17,8 +18,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rawalign_tpu.io import fast5, fasta
-from rawalign_tpu.pore_model import save_pore_model
+from rawalign_tpu.io import fast5
 from rawalign_tpu.testing import synth
 
 
@@ -46,13 +46,12 @@ def main() -> int:
         noise_pa=args.noise_pa,
         frac_random=args.random_frac,
     )
-    fasta.write_fasta(
-        os.path.join(args.outdir, "ref.fa"), [(s.name, s.seq) for s in ds.seqs]
-    )
-    save_pore_model(os.path.join(args.outdir, "model.txt"), ds.model)
-    reads = [(r.name, r.signal) for r in ds.reads]
-    fast5.write_fast5(os.path.join(args.outdir, "reads.fast5"), reads)
-    fast5.write_sigbin(os.path.join(args.outdir, "reads.sigbin.npz"), reads)
+    synth.write_dataset(args.outdir, ds)
+    if fast5.HAVE_H5PY:
+        fast5.write_fast5(
+            os.path.join(args.outdir, "reads.fast5"),
+            [(r.name, r.signal) for r in ds.reads],
+        )
     with open(os.path.join(args.outdir, "truth.tsv"), "w") as f:
         f.write("read\tref\tstrand\tstart\tend\n")
         for r in ds.reads:

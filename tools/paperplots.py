@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Figure and table generation from evaluation results.
 
-The TPU-framework analog of the reference's ``paperplotscripts/``
+This framework's analog of the reference's ``paperplotscripts/``
 (paperplotscripts/README.md:16-27): each subcommand mirrors one of the
 reference's scripts, consuming the JSON rows emitted by
 ``tools/evaluate.py --json`` (the analog of the reference's locally
